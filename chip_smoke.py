@@ -9,17 +9,25 @@
    register and spill lines;
 3. holds each kernel against its plain PyTorch version on the card at
    the shapes the main path gives it (the full-width store's KNOWS pull
-   slab at B = 64; the tail reduction at B = 64, C = 4, N = 114,688):
-   results must be bit-identical, because every value is an integer
-   below 2**24. Times each kernel, its plain version and, where one
-   exists, one PyTorch call computing the same function;
-4. serves read templates through ``repro_torch.serving.QueryService`` on
-   the full-width store ``snb_store(65536, 32768, 16384, seed=0)``
-   (114,688 vertices, 2.16M edges) with B = 64 requests per template:
-   each must land on its expected route, every kernel's launch counter
-   must move during that run, the device tail must finish on the device,
-   and every result must be bag-equal to the port's own interpreter;
-5. prints one ``kernels`` JSON line, the device line, and last the
+   slab at B = 64; the tail reduction at B = 64, C = 4, N = 114,688; the
+   GRAPE segment sum over the store's 2,162,674 edges sorted by
+   destination into 114,688 segments; the SpMV on the KNOWS slab at
+   B = 1): results must be bit-identical on integer inputs below 2**24,
+   and within the stated tolerance on float inputs. Times each kernel,
+   its plain version and, where one exists, one PyTorch call computing
+   the same function;
+4. serves read and hybrid templates through
+   ``repro_torch.serving.QueryService`` on the full-width store
+   ``snb_store(65536, 32768, 16384, seed=0)`` (114,688 vertices, 2.16M
+   edges) with B = 64 requests per template: each must land on its
+   expected route, every kernel's launch counter but ``spmv_ell``'s must
+   move during that run, the device tail must finish on the device, every
+   read result must be bag-equal to the port's own interpreter, and every
+   ``grape`` result must match the same request served by
+   ``QueryService(store, device="cpu")`` (the plain versions);
+5. profiles the device busy share of one batch of each fragment template
+   and of the pagerank template (fixpoint recomputed);
+6. prints one ``kernels`` JSON line, the device line, and last the
    ``{"ok": true, ...}`` line.
 
 Exits non-zero, with no result line, when CUDA is absent or the port's
@@ -64,7 +72,30 @@ TEMPLATES = [
      "MATCH p = shortestPath((a:Person {id: $c})-[:KNOWS*1..4]->(b:Person)) "
      "RETURN b AS b, dist AS d",
      lambda b: {"c": 1009 * b + 3}, "fragment"),
+    # hybrid CALL algo.* templates: a GRAPE fixpoint per distinct argument
+    # (memoized per snapshot), then the interpreter over its rows
+    ("pagerank_topk",
+     "CALL algo.pagerank($d) YIELD v, rank MATCH (v:Person) WHERE rank > $t "
+     "RETURN v AS v, rank AS r ORDER BY r DESC LIMIT 10",
+     lambda b: {"d": 0.85, "t": 1e-6 * b}, "grape"),
+    ("degree_topk",
+     "CALL algo.degree_centrality() YIELD v, centrality MATCH (v:Person) "
+     "WHERE centrality > $t RETURN v AS v, centrality AS c "
+     "ORDER BY c DESC LIMIT 10",
+     lambda b: {"t": 1e-6 * b}, "grape"),
+    ("bfs_count",
+     "CALL algo.bfs($s) YIELD v, depth MATCH (v:Person) WHERE depth < $k "
+     "WITH COUNT(v) AS n RETURN n AS n",
+     lambda b: {"s": [0, 1009, 30_011, 65_000][b % 4], "k": 1 + b % 5},
+     "grape"),
 ]
+# float columns of these templates come from a float32 sum in another
+# order than the CPU's: held within the reference's pagerank tolerance
+# (tests/test_grape.py); every other column must be exact
+RANK_TOL = {"pagerank_topk": (1e-4, 1e-7)}
+# kernels the served templates do not reach: spmv_ell is an op of the
+# GRAPE kernel family that no serving path calls, in the JAX package too
+NOT_ON_MAIN_PATH = {"spmv_ell"}
 
 
 def fail(msg: str) -> None:
@@ -214,9 +245,128 @@ def check_kernels(pg, dev):
         print(f"{name}: bit-exact; kernel {records[-1]['ms']:.4f} ms, "
               f"plain {records[-1]['plain_ms']:.4f} ms, bound "
               f"{b_ms:.4f} ms ({b_by})")
+    records += check_grape_kernels(pg, dev, idx_t, w_t, rm_t, a_csr)
     # timing launches are not main-path launches
     ops.reset_launches()
     return records
+
+
+def check_grape_kernels(pg, dev, idx_t, w_t, rm_t, a_csr):
+    """segment_sum_sorted at the GRAPE superstep's shape and spmv_ell on
+    the KNOWS pull slab at B = 1: bit-identical to the plain version on
+    integer values, within the stated tolerance on float values."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    rng = np.random.default_rng(SEED + 1)
+    n = pg.n_vertices
+    # the pagerank superstep: every edge's source value, combined at its
+    # destination; edges sorted by destination as GrapeEngine sorts them
+    indptr, indices = pg.grin.store.adjacency()
+    src = np.repeat(np.arange(n), np.diff(indptr))
+    order = np.argsort(indices, kind="stable")
+    segs = torch.as_tensor(indices[order].astype(np.int32), device=dev)
+    E = len(order)
+    deg = np.maximum(np.diff(indptr), 1).astype(np.float32)
+    rank = rng.random(n).astype(np.float32)
+    rank /= rank.sum()
+    ones = torch.ones(E, dtype=torch.float32, device=dev)
+    vals = torch.as_tensor((rank / deg)[src[order]], device=dev)
+    records = []
+
+    got = ops.segment_sum(ones, segs, n)
+    if not torch.equal(got, ref.segment_sum_ref(ones, segs, n)):
+        fail("segment_sum_sorted: counts differ from the plain version")
+    got = ops.segment_sum(vals, segs, n)
+    if not torch.equal(got, ops.segment_sum(vals, segs, n)):
+        fail("segment_sum_sorted: two runs gave different bits")
+    want = ref.segment_sum_ref(vals, segs, n)
+    err = float((got - want).abs().max())
+    scale = float(ref.segment_sum_ref(vals.abs(), segs, n).max())
+    print(f"segment_sum_sorted: E={E} n_out={n} hub segment "
+          f"{int(torch.bincount(segs.long()).max())} entries; float max |diff| "
+          f"{err:.3e} <= 1e-6 * max segment sum|.| {scale:.6e}")
+    if err > 1e-6 * scale:
+        fail(f"segment_sum_sorted: max |diff| {err} > 1e-6 * {scale}")
+    lengths = torch.bincount(segs.long(), minlength=n)
+    b_ms, b_by = bound_ms(4 * E + 4 * E + 4 * n, E)
+    records.append({
+        "name": "segment_sum_sorted", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/segment_sum.cu",
+        "replaces": "src/repro/kernels/segment_sum.py:42", "launches": 0,
+        "max_abs_err": err,
+        "ms": time_ms(lambda: ops.segment_sum(vals, segs, n)),
+        "plain_ms": time_ms(lambda: ref.segment_sum_ref(vals, segs, n),
+                            iters=5),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(lambda: torch.segment_reduce(
+            vals, "sum", lengths=lengths))})
+
+    R, W = idx_t.shape
+    nnz = int((idx_t >= 0).sum())
+    xi = torch.as_tensor(rng.integers(0, 8, n).astype(np.float32),
+                         device=dev)
+    if not torch.equal(ops.spmv(idx_t, w_t, xi, rm_t, n),
+                       ref.spmv_step_ref(idx_t, w_t, xi, rm_t, n)):
+        fail("spmv_ell: differs from the plain version on integer x")
+    xf = torch.as_tensor(rng.random(n).astype(np.float32), device=dev)
+    got = ops.spmv(idx_t, w_t, xf, rm_t, n)
+    want = ref.spmv_step_ref(idx_t, w_t, xf, rm_t, n)
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=1e-5, atol=0.0):
+        fail(f"spmv_ell: beyond rtol 1e-5 of the plain version ({err})")
+    b_ms, b_by = bound_ms(R * W * 4 + nnz * 4 + R * 8 + n * 4 + n * 4,
+                          2.0 * nnz)
+    x_col = xf[:, None]
+    records.append({
+        "name": "spmv_ell", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/spmv.cu",
+        "replaces": "src/repro/kernels/spmv.py:37", "launches": 0,
+        "max_abs_err": err,
+        "ms": time_ms(lambda: ops.spmv(idx_t, w_t, xf, rm_t, n)),
+        "plain_ms": time_ms(lambda: ref.spmv_step_ref(idx_t, w_t, xf, rm_t,
+                                                      n), iters=5),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(lambda: torch.sparse.mm(a_csr, x_col))})
+    for rec in records:
+        print(f"{rec['name']}: kernel {rec['ms']:.4f} ms, plain "
+              f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} "
+              f"ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+              f"max |err| {rec['max_abs_err']:.3e}")
+    return records
+
+
+def rows_mismatch(name, want, got):
+    """A grape response against the CPU service's: the same columns and
+    rows; float columns of a RANK_TOL template within its tolerance, with
+    the integer columns compared where the rank pins the row (adjacent
+    ranks farther apart than the tolerance); every column of the other
+    templates exact. Returns None when they match, else what differs."""
+    import numpy as np
+
+    if set(want) != set(got):
+        return f"columns {sorted(got)} != {sorted(want)}"
+    rtol, atol = RANK_TOL.get(name, (0.0, 0.0))
+    floats = [k for k in want if np.asarray(want[k]).dtype.kind == "f"]
+    for k in want:
+        a, b = np.asarray(want[k]), np.asarray(got[k])
+        if a.shape != b.shape:
+            return f"{k}: shape {b.shape} != {a.shape}"
+        if a.dtype.kind == "f":
+            if not np.allclose(b, a, rtol=rtol, atol=atol):
+                return f"{k}: {b.tolist()} != {a.tolist()}"
+            continue
+        keep = np.ones(len(a), bool)
+        if floats and name in RANK_TOL:
+            r = np.asarray(want[floats[0]], np.float64)
+            gap = np.abs(np.diff(r)) > atol + rtol * np.abs(r[1:])
+            keep &= np.concatenate([[True], gap])     # apart from the left
+            keep &= np.concatenate([gap, [True]])     # and from the right
+        if not np.array_equal(a[keep], b[keep]):
+            return f"{k}: {b.tolist()} != {a.tolist()}"
+    return None
 
 
 def serve(store, dev):
@@ -228,10 +378,12 @@ def serve(store, dev):
     from repro_torch.serving import QueryService
 
     svc = QueryService(store, device=dev)
-    # warm-up pass: builds the hop slabs and device masks once
+    # warm-up pass: builds the hop slabs, device masks and GRAPE engine
     for _name, q, params, _route in TEMPLATES:
         svc.serve([(q, params(b)) for b in range(B)])
     torch.cuda.synchronize()
+    # the measured run computes its fixpoints anew, not from the memo
+    svc.procedures.clear()
     ops.reset_launches()
     latency = {}
     responses = {}
@@ -243,11 +395,28 @@ def serve(store, dev):
         responses[name] = rs
     launches = dict(ops.LAUNCHES)
     print("launches on the main path:", json.dumps(launches))
+    # the grape answers of the port's plain versions, on the CPU
+    cpu = QueryService(store, device="cpu")
     for name, q, params, route in TEMPLATES:
         rs = responses[name]
         got = {r.engine for r in rs}
         if got != {route}:
             fail(f"{name}: served on {sorted(got)}, expected {route}")
+        if route == "grape":
+            t0 = time.perf_counter()
+            want, _ = cpu.serve([(q, params(b)) for b in range(B)])
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+            for b, (w_, r) in enumerate(zip(want, rs)):
+                why = rows_mismatch(name, w_.result, r.result)
+                if why is not None:
+                    fail(f"{name}: query {b} differs from the CPU service: "
+                         f"{why}")
+            print(f"{name}: route grape, {len(rs)} requests, batch "
+                  f"{latency[name]:.3f} ms, first request (fixpoint) "
+                  f"{rs[0].service_us / 1e3:.3f} ms, rest "
+                  f"{sum(r.service_us for r in rs[1:]) / 1e3:.3f} ms; "
+                  f"matches the CPU service ({cpu_ms:.1f} ms there)")
+            continue
         plan, _ = svc.compile(q)
         for b, r in enumerate(rs):
             want = svc.gaia.execute_plan(plan.bind(params(b)))
@@ -268,21 +437,24 @@ def serve(store, dev):
     if not tails.get("device"):
         fail(f"no batch finished its tail on the device: {tails}")
     for name, count in launches.items():
-        if count <= 0:
+        if count <= 0 and name not in NOT_ON_MAIN_PATH:
             fail(f"kernel {name} was not launched on the main path")
     return launches, latency
 
 
 def profile_device_share(svc) -> None:
-    """One more batch of each fragment template under torch.profiler:
-    the device's busy time (kernels and copies) beside the batch's wall
-    time; the rest is host work (planning, masks, row assembly)."""
+    """One more batch of each fragment template, and of the pagerank
+    template with its fixpoint recomputed, under torch.profiler: the
+    device's busy time (kernels and copies) beside the batch's wall time;
+    the rest is host work (planning, masks, row assembly, the fixpoint's
+    per-superstep residual read)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for name, q, params, route in TEMPLATES:
-        if route != "fragment":
+        if route != "fragment" and name != "pagerank_topk":
             continue
+        svc.procedures.clear()
         reqs = [(q, params(b)) for b in range(B)]
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:

@@ -188,9 +188,31 @@ def execute_plan(plan: LogicalPlan, pg, *,
 
 def _run_procedure(op: ProcedureCall, pg, procedures,
                    table: Optional[Table]) -> Table:
-    """CALL algo.* runs on the GRAPE analytics engine, which this package
-    does not carry yet."""
-    raise NotImplementedError("CALL needs the GRAPE slice")
+    """CALL algo.* — run the GRAPE-backed procedure and source the row
+    table from its result: every vertex under the yielded alias, the score
+    both as a row column (`WHERE rank > $t`, `ORDER BY rank`) and as a
+    temporary vertex property on the shared facade (`v.rank`,
+    gremlin `values('rank')`). See DESIGN.md §7 for the lifetime rules."""
+    if procedures is None:
+        raise RuntimeError(
+            "plan contains CALL but the executing engine has no "
+            "ProcedureRegistry attached (pass procedures=…)")
+    if table is not None and table.n_rows:
+        raise NotImplementedError("CALL must be the source of the plan")
+    argvals = []
+    for a in op.args:
+        if isinstance(a, Param):
+            raise ValueError(f"unbound parameter ${a.name} in CALL "
+                             f"{op.proc}: bind(params) before execution")
+        if not isinstance(a, Const):
+            raise ValueError(f"CALL {op.proc} args must be literals or "
+                             f"$params, got {a}")
+        argvals.append(a.value)
+    scores = procedures.run(pg.grin.store, op.proc, tuple(argvals))
+    v_alias, score_name = op.yields
+    pg.set_temp_vprop(score_name, scores)
+    ids = np.arange(pg.n_vertices, dtype=np.int64)
+    return Table({v_alias: ids, score_name: np.asarray(scores)}, {})
 
 
 def _group(op: With, table: Table, pg) -> Table:

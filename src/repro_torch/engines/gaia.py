@@ -15,7 +15,7 @@ import numpy as np
 
 from repro_torch.core.ir.cbo import Catalog, apply_cbo
 from repro_torch.core.ir.codegen import Table, execute_plan
-from repro_torch.core.ir.dag import LogicalPlan, Scan
+from repro_torch.core.ir.dag import LogicalPlan, ProcedureCall, Scan
 from repro_torch.core.ir.parser import parse_cypher, parse_gremlin
 from repro_torch.core.ir.rbo import apply_rbo
 from repro_torch.storage.lpg import PropertyGraph
@@ -24,7 +24,7 @@ from repro_torch.storage.lpg import PropertyGraph
 class GaiaEngine:
     def __init__(self, store, catalog: Optional[Catalog] = None,
                  rbo: bool = True, cbo: bool = True, plan_cache=None,
-                 device=None):
+                 procedures=None, device=None):
         # accept a prebuilt facade so co-located engines share one set of
         # adjacency caches (reverse CSR, label slices)
         self.pg = store if isinstance(store, PropertyGraph) \
@@ -39,6 +39,16 @@ class GaiaEngine:
         # first one is built (the interpreter never touches a device)
         self.device = device
         self._frontier_execs: Dict[Tuple, Any] = {}
+        # CALL algo.* executor, created lazily so plain traversal engines
+        # never touch the analytics stack (DESIGN.md §7)
+        self._procedures = procedures
+
+    @property
+    def procedures(self):
+        if self._procedures is None:
+            from repro_torch.engines.procedures import ProcedureRegistry
+            self._procedures = ProcedureRegistry(device=self.device)
+        return self._procedures
 
     # ------------------------------------------------------------- compile
     def compile(self, query: str, language: str = "cypher") -> LogicalPlan:
@@ -71,7 +81,11 @@ class GaiaEngine:
 
     def execute_plan(self, plan: LogicalPlan,
                      params: Optional[Dict[str, Any]] = None):
-        return execute_plan(plan, self.pg, params=params)
+        procs = self._procedures
+        if procs is None and any(isinstance(op, ProcedureCall)
+                                 for op in plan.ops):
+            procs = self.procedures       # lazy-create on first CALL plan
+        return execute_plan(plan, self.pg, params=params, procedures=procs)
 
     # ------------------------------------------------- fragment frontier
     def fragment_executor(self, n_frags: int = 1, use_kernels: bool = False,

@@ -56,13 +56,18 @@ def _strip_param_binding(expr, param_cols: set):
 
 
 class HiActorEngine:
-    def __init__(self, store, catalog: Optional[Catalog] = None):
+    def __init__(self, store, catalog: Optional[Catalog] = None,
+                 procedures=None):
         self.pg = store if isinstance(store, PropertyGraph) \
             else PropertyGraph(store)
         self.catalog = catalog or Catalog.build(self.pg)
         self._procs: Dict[str, Procedure] = {}
         self._indexes: Dict[Tuple[Optional[int], str],
                             Tuple[np.ndarray, np.ndarray]] = {}
+        # CALL algo.* registry for stored procedures that embed a
+        # ProcedureCall (executed per-query: analytics plans do not ride
+        # the __qid__-batched pass — the fixpoint memo does the sharing)
+        self.procedures = procedures
 
     # ------------------------------------------------------------ procedures
     def register(self, name: str, cypher: str) -> Procedure:
@@ -119,7 +124,8 @@ class HiActorEngine:
         proc = self._procs[name]
         Q = len(params_list)
         if proc.index_prop is None:
-            return [execute_plan(proc.plan, self.pg, params=p)
+            return [execute_plan(proc.plan, self.pg, params=p,
+                                 procedures=self.procedures)
                     for p in params_list]
 
         sorted_vals, sorted_ids = self._indexes[(proc.scan_label,
@@ -158,7 +164,8 @@ class HiActorEngine:
     # naive per-query path (the baseline in the throughput benchmark)
     def submit_serial(self, name: str, params_list: Sequence[Dict[str, Any]]):
         proc = self._procs[name]
-        return [execute_plan(proc.plan, self.pg, params=p)
+        return [execute_plan(proc.plan, self.pg, params=p,
+                             procedures=self.procedures)
                 for p in params_list]
 
     def submit_auto(self, name: str, params_list: Sequence[Dict[str, Any]],

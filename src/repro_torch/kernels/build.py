@@ -24,7 +24,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # exported C functions: name -> (library, argtypes); each returns the
 # cudaError_t of its launch
 SIGNATURES = {
@@ -32,6 +32,8 @@ SIGNATURES = {
                                          _I, _I, _P]),
     "tail_reduce_launch": ("tail_reduce", [_P, _P, _P, _P, _I, _I, _I, _I,
                                            _I, _P]),
+    "segment_sum_launch": ("segment_sum", [_P, _P, _P, _L, _I, _I, _P]),
+    "spmv_ell_launch": ("spmv", [_P, _P, _P, _P, _I, _I, _I, _P]),
 }
 LIBRARIES = sorted({lib for lib, _ in SIGNATURES.values()})
 

@@ -18,7 +18,8 @@ from repro_torch.kernels import ref
 from repro_torch.storage.partition import PAD_SENTINEL
 
 LAUNCHES: Dict[str, int] = {"frontier_ell": 0, "frontier_ell_minplus": 0,
-                            "tail_reduce_grid": 0}
+                            "tail_reduce_grid": 0, "segment_sum_sorted": 0,
+                            "spmv_ell": 0}
 
 # columns of N one block of the tail reduction covers (csrc/tail_reduce.cu)
 TAIL_CHUNK = 4096
@@ -82,6 +83,82 @@ def csr_to_ell(indptr: np.ndarray, indices: np.ndarray,
         ell_w[i, : hi - lo] = weights[lo:hi]
         row_map[i] = r
     return ell_idx, ell_w, row_map
+
+
+def spmv(ell_idx: torch.Tensor, ell_w: torch.Tensor, x: torch.Tensor,
+         row_map: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """y = A @ x over the ELL slab (``csr_to_ell``): y [n_rows] from
+    x [N] float32; split slab rows fold back onto their original rows
+    with a scatter-add, outside the kernel as in the JAX package."""
+    _require(x.dim() == 1, "x must be float32 [N]")
+    _check_slab(ell_idx, ell_w, x[None], row_map)
+    if _plain(x):
+        return ref.spmv_step_ref(ell_idx, ell_w, x, row_map, n_rows)
+    from repro_torch.kernels import build
+
+    R, W = ell_idx.shape
+    y_slab = torch.empty(R, dtype=torch.float32, device=x.device)
+    if R:
+        err = build.library("spmv").spmv_ell_launch(
+            ell_idx.data_ptr(), ell_w.data_ptr(), x.data_ptr(),
+            y_slab.data_ptr(), R, W, x.device.index or 0, _stream(x))
+        _check_cuda(err, "spmv_ell")
+        LAUNCHES["spmv_ell"] += 1
+    out = torch.zeros(n_rows, dtype=torch.float32, device=x.device)
+    return out.index_add_(0, row_map, y_slab)
+
+
+# -------------------------------------------------------- segment sum
+def _check_segments(segs: torch.Tensor, n_out: int) -> None:
+    """Raise ``ValueError`` unless ``segs`` is ascending with every id
+    below ``n_out`` (negative ids allowed: dropped entries). One device
+    reduction and one host sync the first time a tensor is seen; the
+    verdict is kept on the tensor with its version counter, so an
+    unchanged tensor (an engine's prepared segments) is not checked again
+    and one written in place since is."""
+    tag = (segs._version, n_out)
+    if getattr(segs, "_segments_checked", None) == tag:
+        return
+    if segs.numel():
+        bad = segs[-1] >= n_out
+        if segs.numel() > 1:
+            bad = bad | (segs[1:] < segs[:-1]).any()
+        if bool(bad):
+            raise ValueError("segment_sum needs segs sorted ascending, "
+                             f"each below n_out = {n_out}")
+    segs._segments_checked = tag
+
+
+def segment_sum(vals: torch.Tensor, segs: torch.Tensor,
+                n_out: int) -> torch.Tensor:
+    """Sorted-segment sum: y [n_out] float32, y[s] = Σ vals[e] over
+    segs[e] == s. ``segs`` int32 [E] must be sorted ascending (negative
+    ⇒ dropped; they sort first); unsorted input raises ``ValueError`` on
+    every device — there is no unsorted fallback. Deterministic on the
+    card: no atomics, each segment reduced by one warp in a fixed
+    order."""
+    _require(vals.dtype == torch.float32 and vals.dim() == 1,
+             "vals must be float32 [E]")
+    _require(segs.dtype == torch.int32 and segs.shape == vals.shape,
+             "segs must be int32 with vals' shape")
+    _require(segs.device == vals.device, "vals and segs must be on one "
+             "device")
+    _require(vals.is_contiguous() and segs.is_contiguous(),
+             "vals and segs must be contiguous")
+    plain = _plain(vals)
+    _check_segments(segs, n_out)
+    if plain:
+        return ref.segment_sum_ref(vals, segs, n_out)
+    from repro_torch.kernels import build
+
+    y = torch.empty(n_out, dtype=torch.float32, device=vals.device)
+    if n_out:
+        err = build.library("segment_sum").segment_sum_launch(
+            vals.data_ptr(), segs.data_ptr(), y.data_ptr(), vals.numel(),
+            n_out, vals.device.index or 0, _stream(vals))
+        _check_cuda(err, "segment_sum_sorted")
+        LAUNCHES["segment_sum_sorted"] += 1
+    return y
 
 
 # --------------------------------------------------------- frontier hop

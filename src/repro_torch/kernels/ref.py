@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the port's CUDA kernels.
 
 Each function computes exactly what its kernel computes, with the same
-float32 arithmetic, so results agree bit for bit wherever the values are
-integers below 2**24 (path counts, distances, and the tail's certified
-sums). The wrappers in :mod:`repro_torch.kernels.ops` use these for CPU
+float32 arithmetic (the segment sum, like its kernel, accumulates in
+float64), so results agree bit for bit wherever the values are integers
+below 2**24 (path counts, distances, the tail's certified sums, degree
+counts). The wrappers in :mod:`repro_torch.kernels.ops` use these for CPU
 tensors; on the GPU they are the yardstick the kernels are held against
 (``chip_smoke.py``, ``tests/test_torch_kernels.py``).
 """
@@ -105,3 +106,34 @@ def tail_reduce_ref(x: torch.Tensor, vals: torch.Tensor):
         mins = torch.full(prod.shape[:2], torch.inf, device=x.device)
         maxs = torch.full(prod.shape[:2], -torch.inf, device=x.device)
     return cnt, sums, sabs, mins, maxs
+
+
+def spmv_ref(indices: torch.Tensor, weights: torch.Tensor,
+             x: torch.Tensor) -> torch.Tensor:
+    """ELL SpMV. indices/weights [R, W] (pad < 0); x [N] → y [R]:
+    y[r] = Σ_w weights[r, w]·x[indices[r, w]] over entries with
+    indices ≥ 0 (products rounded, then summed over W)."""
+    return frontier_ref(indices, weights, x.float()[None])[0]
+
+
+def spmv_step_ref(ell_idx: torch.Tensor, ell_w: torch.Tensor,
+                  x: torch.Tensor, row_map: torch.Tensor,
+                  n_rows: int) -> torch.Tensor:
+    """:func:`spmv_ref`, then split slab rows folded back onto their
+    original rows with a scatter-add over ``row_map``: y [n_rows]."""
+    y_slab = spmv_ref(ell_idx, ell_w, x)
+    out = torch.zeros(n_rows, dtype=torch.float32, device=x.device)
+    return out.index_add_(0, row_map.long(), y_slab)
+
+
+def segment_sum_ref(vals: torch.Tensor, segs: torch.Tensor,
+                    n_out: int) -> torch.Tensor:
+    """Segment sum: y [n_out] float32, y[s] = Σ vals[e] over entries with
+    segs[e] == s; entries with segs < 0 are dropped. Needs no order of
+    ``segs`` (the kernel needs them sorted). Accumulates in float64 and
+    rounds once, as the kernel does: a float32 running sum over a hub
+    segment of 10⁵–10⁶ entries would drift by about 1e-5 of its total."""
+    keep = segs >= 0
+    out = torch.zeros(n_out, dtype=torch.float64, device=vals.device)
+    out.index_add_(0, segs[keep].long(), vals[keep].double())
+    return out.float()

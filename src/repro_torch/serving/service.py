@@ -14,14 +14,17 @@ values to bind. The service
    to dense frontier stages and whose estimate clears
    ``cbo.should_use_fragment_path`` execute as one batched device pass on
    the partitioned fragment substrate (DESIGN.md §9), through the CUDA
-   kernels on the GPU; everything else executes on Gaia's interpreter with
-   the cached plan re-bound per request,
+   kernels on the GPU; hybrid ``CALL algo.*`` plans (route ``grape``) run
+   per request on Gaia's interpreter, which sources its rows from the
+   GRAPE fixpoint that :class:`ProcedureRegistry` memoizes per snapshot
+   (on the GPU the fixpoint's ``sum`` combiner is the segment-sum
+   kernel); everything else executes on Gaia's interpreter with the
+   cached plan re-bound per request,
 4. reports per-query latency and aggregate QPS per flush.
 
-Hybrid ``CALL algo.*`` plans (route ``grape``) and write plans (route
-``write``) are recognised and rejected with ``NotImplementedError``: the
-analytics engine and the mutable store are not part of this package yet.
-Everything the read side derives from the store lives in one
+Write plans (route ``write``) are recognised and rejected with
+``NotImplementedError``: the mutable store is not part of this package
+yet. Everything the read side derives from the store lives in one
 :class:`EngineBinding`.
 """
 
@@ -41,6 +44,7 @@ from repro_torch.core.ir.dag import ProcedureCall, plan_is_write
 from repro_torch.device import resolve_device
 from repro_torch.engines.gaia import GaiaEngine
 from repro_torch.engines.hiactor import HiActorEngine
+from repro_torch.engines.procedures import ProcedureRegistry
 from repro_torch.serving.plan_cache import PlanCache, plan_key
 from repro_torch.storage.lpg import PropertyGraph
 
@@ -69,7 +73,7 @@ class Request:
 @dataclasses.dataclass
 class Response:
     result: Dict[str, np.ndarray]
-    engine: str          # "gaia" | "hiactor" | "fragment"
+    engine: str          # "gaia" | "hiactor" | "fragment" | "grape"
     cached: bool         # plan-cache hit at admission time
     latency_us: float    # wall time of the admission batch this query
     #                      rode
@@ -128,8 +132,8 @@ class EngineBinding:
 
 class QueryService:
     """Concurrent query serving over one store with both engines attached.
-    ``device`` is where the fragment route runs (``None`` = CUDA; raises
-    when CUDA is absent)."""
+    ``device`` is where the fragment and grape routes run (``None`` =
+    CUDA; raises when CUDA is absent)."""
 
     def __init__(self, store, *, catalog: Optional[Catalog] = None,
                  cache_capacity: int = 128, batch_size: int = 64,
@@ -137,7 +141,9 @@ class QueryService:
                  rbo: bool = True, cbo: bool = True,
                  fragment: bool = True, n_frags: int = 1,
                  fragment_min_cost: float = 256.0,
-                 device_tail: bool = True, device=None):
+                 device_tail: bool = True,
+                 procedures: Optional[ProcedureRegistry] = None,
+                 device=None):
         self.device = resolve_device(device)
         self.cache = PlanCache(cache_capacity, on_evict=self._on_plan_evicted)
         self.batch_size = max(1, int(batch_size))
@@ -151,6 +157,9 @@ class QueryService:
         # lower eligible relational tails into the fragment batch's device
         # pass (DESIGN.md §14); off = interpreter tail
         self.device_tail = device_tail
+        # CALL algo.* registry; pass a shared one to reuse memoized
+        # fixpoints across services over the same snapshot
+        self.procedures = procedures or ProcedureRegistry(device=self.device)
         self._queue: List[Request] = []
         self._proc_seq = 0                # monotonic: names never reused
         # stored-procedure registration is the one binding mutation that
@@ -165,8 +174,10 @@ class QueryService:
             else PropertyGraph(store)     # one facade: engines share the
         # adjacency caches (reverse CSR, label slices)
         gaia = GaiaEngine(pg, catalog=catalog, rbo=self.rbo, cbo=self.cbo,
-                          plan_cache=self.cache, device=self.device)
-        hiactor = HiActorEngine(pg, catalog=gaia.catalog)
+                          plan_cache=self.cache, procedures=self.procedures,
+                          device=self.device)
+        hiactor = HiActorEngine(pg, catalog=gaia.catalog,
+                                procedures=self.procedures)
         return EngineBinding(gaia, hiactor,
                              getattr(pg.grin.store, "version", None))
 
@@ -258,7 +269,9 @@ class QueryService:
 
     def exec_interpreted(self, binding: EngineBinding, plan,
                          params: Dict[str, Any]) -> Dict[str, np.ndarray]:
-        """One OLAP request on Gaia's interpreter."""
+        """One OLAP / hybrid CALL request on Gaia's interpreter (for CALL
+        plans the procedure memo makes every request after the first reuse
+        the converged fixpoint)."""
         return binding.gaia.execute_plan(plan.bind(params))
 
     # -------------------------------------------------------------- admit
@@ -272,8 +285,8 @@ class QueryService:
         """Execute all pending requests; responses in submission order.
 
         Admission compiles and validates every template group first.
-        Invalid requests (bad template, unbound params, a route this
-        package does not serve) are dropped, with the first error raised,
+        Invalid requests (bad template, unbound params, a write, which
+        this package does not serve yet) are dropped, with the first error raised,
         while every valid request goes back on the queue untouched."""
         b = self._binding
         pending, self._queue = self._queue, []
@@ -294,15 +307,13 @@ class QueryService:
             except REQUEST_ERRORS as e:
                 rejected.extend([e] * len(items))
                 continue
-            # the write and grape routes are pure plan-shape decisions
-            # (route_for_plan); the others resolve at execution, after
-            # earlier groups' HiActor registrations refined the catalog
-            if plan_is_write(plan) or any(isinstance(op, ProcedureCall)
-                                          for op in plan.ops):
+            # the write route is a pure plan-shape decision (route_for_plan);
+            # the others resolve at execution, after earlier groups'
+            # HiActor registrations refined the catalog
+            if plan_is_write(plan):
                 rejected.extend([NotImplementedError(
-                    f"template {first.template!r} needs the write or "
-                    f"GRAPE route, which this package does not serve "
-                    f"yet")] * len(items))
+                    f"template {first.template!r} needs the write route, "
+                    f"which this package does not serve yet")] * len(items))
                 continue
             needed = plan.param_names()
             valid = []
@@ -355,7 +366,8 @@ class QueryService:
                         responses[pos] = Response(out, eng, cached, c_us,
                                                   service_us=c_us)
             else:
-                # OLAP plans execute per request (batch_size plays no role)
+                # OLAP and hybrid CALL plans execute per request
+                # (batch_size plays no role)
                 for pos, req in items:
                     c0 = time.perf_counter()
                     out = self.exec_interpreted(b, plan, req.params)

@@ -79,3 +79,65 @@ class TestCudaKernels:
         xt, vt = T(x).cuda(), T(vals).cuda()
         for g, w_ in zip(ops.tail_reduce(xt, vt), ref.tail_reduce_ref(xt, vt)):
             assert torch.equal(g, w_)
+
+
+def sorted_segments(rng, E, n_out, pad=0.2, hub=0.3):
+    """Ascending segment ids with PAD_SENTINEL entries first, a hub
+    segment 0 and empty segments."""
+    segs = rng.integers(0, n_out, E)
+    segs[rng.random(E) < hub] = 0
+    segs[rng.random(E) < pad] = PAD_SENTINEL
+    return np.sort(segs).astype(np.int32)
+
+
+@pytest.mark.cuda
+class TestCudaGrapeKernels:
+    """segment_sum_sorted and spmv_ell against their plain versions on
+    the card: bit-identical on integer values, within a stated tolerance
+    on float values (another summation order)."""
+
+    @pytest.fixture(autouse=True)
+    def _need_cuda(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+
+    @pytest.mark.parametrize("E,n_out", [(1, 1), (7, 3), (513, 40),
+                                         (100_000, 3000), (40, 5000)])
+    def test_segment_sum_kernel(self, E, n_out):
+        rng = np.random.default_rng(E + n_out)
+        segs = T(sorted_segments(rng, E, n_out)).cuda()
+        vals = T(rng.integers(0, 9, E).astype(np.float32)).cuda()
+        before = ops.LAUNCHES["segment_sum_sorted"]
+        got = ops.segment_sum(vals, segs, n_out)
+        assert ops.LAUNCHES["segment_sum_sorted"] == before + 1
+        assert torch.equal(got, ref.segment_sum_ref(vals, segs, n_out))
+        fv = T(rng.random(E).astype(np.float32)).cuda()
+        got = ops.segment_sum(fv, segs, n_out)
+        # deterministic: no atomics, the same bits on every run
+        assert torch.equal(got, ops.segment_sum(fv, segs, n_out))
+        want = ref.segment_sum_ref(fv, segs, n_out)
+        scale = ref.segment_sum_ref(fv.abs(), segs, n_out).max()
+        assert float((got - want).abs().max()) <= 1e-6 * float(scale)
+
+    def test_segment_sum_rejects_unsorted(self):
+        segs = torch.tensor([0, 2, 1], dtype=torch.int32, device="cuda")
+        with pytest.raises(ValueError, match="sorted"):
+            ops.segment_sum(torch.ones(3, device="cuda"), segs, 3)
+
+    @pytest.mark.parametrize("R,W,n", [(256, 4, 64), (512, 130, 200),
+                                       (256, 33, 90)])
+    def test_spmv_kernel(self, R, W, n):
+        rng = np.random.default_rng(R + W)
+        idx, w = random_slab(rng, R, W, n)
+        row_map = np.sort(rng.integers(0, n, R)).astype(np.int64)
+        args = [T(a).cuda() for a in (idx, w)]
+        rm = T(row_map).cuda()
+        x = T(rng.integers(0, 9, n).astype(np.float32)).cuda()
+        before = ops.LAUNCHES["spmv_ell"]
+        got = ops.spmv(*args, x, rm, n)
+        assert ops.LAUNCHES["spmv_ell"] == before + 1
+        assert torch.equal(got, ref.spmv_step_ref(*args, x, rm, n))
+        xf = T(rng.random(n).astype(np.float32)).cuda()
+        torch.testing.assert_close(ops.spmv(*args, xf, rm, n),
+                                   ref.spmv_step_ref(*args, xf, rm, n),
+                                   rtol=1e-5, atol=1e-6)

@@ -3,7 +3,11 @@ package's: the plain PyTorch versions and the CPU dispatch of the
 wrappers, bit-exact against ``repro.kernels.ops`` (Pallas kernels in
 interpret mode) and ``repro.kernels.ref`` on random slabs with padding,
 edges into vertex 0 and split heavy rows. Inputs are small integers, so
-every summation order gives the same float32 result. The CUDA kernels
+every summation order gives the same float32 result; the segment sum and
+the SpMV are also held on float inputs, within 1e-6. The segment sum is
+held against ``repro.kernels.ref.segment_sum_ref``, not the reference's
+Pallas kernel, which does not run on the installed JAX (ROADMAP C2).
+The CUDA kernels
 themselves are held against the plain versions in ``test_torch_cuda.py``,
 which runs only where a GPU is present."""
 
@@ -207,3 +211,123 @@ class TestWrappersOnCpu:
             ops.frontier_step(idx, torch.zeros(256, 4, device=meta), x,
                               torch.zeros(256, dtype=torch.int64,
                                           device=meta), 8)
+
+
+def sorted_segments(rng, E, n_out, pad=0.2, hub=0.3):
+    """Ascending segment ids with PAD_SENTINEL entries first, a hub
+    segment 0 holding ``hub`` of the entries, and empty segments."""
+    segs = rng.integers(0, n_out, E)
+    segs[rng.random(E) < hub] = 0
+    segs[rng.random(E) < pad] = PAD_SENTINEL
+    return np.sort(segs).astype(np.int32)
+
+
+SEG_SHAPES = [(1, 1), (7, 3), (513, 40), (4096, 1000), (5000, 64)]
+
+
+class TestSegmentSumAndSpmv:
+    @pytest.mark.parametrize("E,n_out", SEG_SHAPES)
+    def test_segment_sum_ref_unsorted(self, E, n_out):
+        """The plain version needs no order: it equals the reference's
+        oracle on unsorted ids, bit for bit on integer values."""
+        rng = np.random.default_rng(E)
+        segs = rng.integers(-1, n_out, E).astype(np.int32)
+        vals = rng.integers(-20, 20, E).astype(np.float32)
+        want = np.asarray(jref.segment_sum_ref(jnp.asarray(vals),
+                                               jnp.asarray(segs), n_out))
+        got = ref.segment_sum_ref(T(vals), T(segs), n_out).numpy()
+        np.testing.assert_array_equal(got, want)
+
+    @pytest.mark.parametrize("E,n_out", SEG_SHAPES)
+    def test_segment_sum_wrapper(self, E, n_out):
+        rng = np.random.default_rng(E + n_out)
+        segs = sorted_segments(rng, E, n_out)
+        vals = rng.integers(0, 9, E).astype(np.float32)
+        want = np.asarray(jref.segment_sum_ref(jnp.asarray(vals),
+                                               jnp.asarray(segs), n_out))
+        got = ops.segment_sum(T(vals), T(segs), n_out).numpy()
+        np.testing.assert_array_equal(got, want)
+        fv = rng.random(E).astype(np.float32)
+        want = np.asarray(jref.segment_sum_ref(jnp.asarray(fv),
+                                               jnp.asarray(segs), n_out))
+        np.testing.assert_allclose(
+            ops.segment_sum(T(fv), T(segs), n_out).numpy(), want,
+            rtol=1e-6, atol=1e-6)
+
+    @pytest.mark.parametrize("segs,n_out", [
+        ([0, 2, 1, 3], 4),            # unsorted
+        ([3, -1, 4, 5], 6),           # padding after an id
+        ([0, 1, 5], 5),               # id past n_out
+    ])
+    def test_segment_sum_rejects(self, segs, n_out):
+        segs = torch.tensor(segs, dtype=torch.int32)
+        with pytest.raises(ValueError, match="sorted"):
+            ops.segment_sum(torch.ones(len(segs)), segs, n_out)
+
+    def test_segment_sum_rechecks_after_write(self):
+        """The sortedness verdict kept on a tensor lapses when the tensor
+        is written in place."""
+        segs = torch.tensor([-1, 0, 0, 2], dtype=torch.int32)
+        vals = torch.ones(4)
+        assert ops.segment_sum(vals, segs, 3).tolist() == [2.0, 0.0, 1.0]
+        segs[1] = 2
+        with pytest.raises(ValueError):
+            ops.segment_sum(vals, segs, 3)
+
+    @pytest.mark.parametrize("bad", ["vals_dtype", "segs_dtype", "shape"])
+    def test_segment_sum_input_checks(self, bad):
+        vals, segs = torch.ones(4), torch.zeros(4, dtype=torch.int32)
+        if bad == "vals_dtype":
+            vals = vals.double()
+        elif bad == "segs_dtype":
+            segs = segs.long()
+        else:
+            vals = vals[:3]
+        with pytest.raises(ValueError):
+            ops.segment_sum(vals, segs, 2)
+
+    @pytest.mark.parametrize("R,W,n", [(256, 4, 64), (512, 130, 200)])
+    def test_spmv_ref(self, R, W, n):
+        rng = np.random.default_rng(R + W)
+        idx, w = random_slab(rng, R, W, n)
+        x = rng.integers(0, 9, n).astype(np.float32)
+        want = np.asarray(jref.spmv_ref(jnp.asarray(idx), jnp.asarray(w),
+                                        jnp.asarray(x)))
+        np.testing.assert_array_equal(
+            ref.spmv_ref(T(idx), T(w), T(x)).numpy(), want)
+
+    @pytest.mark.parametrize("seed", [0, 1])
+    def test_spmv_split_rows(self, seed):
+        """ops.spmv against the reference's ``ops.spmv`` (Pallas kernel in
+        interpret mode) on a slab with split heavy rows and edges into
+        vertex 0: exact on integer x, within 1e-6 on float x."""
+        rng = np.random.default_rng(20 + seed)
+        n = 40
+        (ji, jw, jm), (ti, tw, tm) = split_slab(rng, n)
+        for x, exact in ((rng.integers(0, 9, n).astype(np.float32), True),
+                         (rng.random(n).astype(np.float32), False)):
+            want = np.asarray(jops.spmv(jnp.asarray(ji), jnp.asarray(jw),
+                                        jnp.asarray(x), jnp.asarray(jm), n,
+                                        interpret=True))
+            got = ops.spmv(T(ti), T(tw), T(x), T(tm), n).numpy()
+            if exact:
+                np.testing.assert_array_equal(got, want)
+            else:
+                np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+
+    def test_new_wrappers_refuse_other_devices(self):
+        meta = torch.device("meta")
+        with pytest.raises(ValueError, match="no kernel"):
+            ops.segment_sum(torch.zeros(4, device=meta),
+                            torch.zeros(4, dtype=torch.int32, device=meta), 2)
+        with pytest.raises(ValueError, match="no kernel"):
+            ops.spmv(torch.zeros(256, 4, dtype=torch.int32, device=meta),
+                     torch.zeros(256, 4, device=meta),
+                     torch.zeros(8, device=meta),
+                     torch.zeros(256, dtype=torch.int64, device=meta), 8)
+
+    def test_no_launch_on_cpu(self):
+        ops.reset_launches()
+        ops.segment_sum(torch.ones(3), torch.tensor([0, 1, 1],
+                                                    dtype=torch.int32), 2)
+        assert ops.LAUNCHES["segment_sum_sorted"] == 0

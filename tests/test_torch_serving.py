@@ -3,7 +3,8 @@
 ``repro.serving.QueryService`` on the same request streams — every
 request must land on the same route and give a bag-equal result — plus
 the state carried across (``store_from_arrays``, the generator), the
-routes the port does not serve yet, and the guard that importing the
+write route the port does not serve yet beside the grape route it does,
+and the guard that importing the
 port loads neither JAX nor the JAX package."""
 
 import os
@@ -153,12 +154,13 @@ class TestStateCarriedAcross:
                               jstore.indices)
 
 
+WRITE = ("MATCH (a:Person {id: $x}), (b:Person {id: $y}) "
+         "CREATE (a)-[:KNOWS]->(b)")
+CALL = "CALL algo.pagerank(0.85) YIELD v, rank RETURN rank AS rank"
+
+
 class TestRoutesNotServedYet:
-    @pytest.mark.parametrize("template", [
-        "CALL algo.pagerank(0.85) YIELD v, rank RETURN rank AS rank",
-        "MATCH (a:Person {id: $x}), (b:Person {id: $y}) "
-        "CREATE (a)-[:KNOWS]->(b)",
-    ])
+    @pytest.mark.parametrize("template", [WRITE])
     def test_rejected_and_others_requeued(self, template):
         svc = TService(t_snb(**SMALL), device="cpu")
         good = "MATCH (v:Person {id: $c}) RETURN v.credits AS c"
@@ -168,6 +170,24 @@ class TestRoutesNotServedYet:
             svc.flush()
         rs, _ = svc.flush()                 # the valid request survived
         assert len(rs) == 1 and rs[0].engine == "hiactor"
+
+    def test_call_served_on_grape_while_write_rejected(self, jstore):
+        """CALL plans are served on the grape route, as the reference
+        serves them; a write in the same flush is still rejected and the
+        other requests are requeued."""
+        svc = TService(t_snb(**SMALL), device="cpu")
+        good = "MATCH (v:Person {id: $c}) RETURN v.credits AS c"
+        svc.submit(good, {"c": 3})
+        svc.submit(CALL)
+        svc.submit(WRITE, {"x": 1, "y": 2})
+        with pytest.raises(NotImplementedError, match="write"):
+            svc.flush()
+        rs, stats = svc.flush()
+        assert [r.engine for r in rs] == ["hiactor", "grape"]
+        want, _ = JService(jstore).serve([(CALL, {})])
+        np.testing.assert_allclose(rs[1].result["rank"],
+                                   want[0].result["rank"], rtol=1e-4,
+                                   atol=1e-7)
 
 
 def test_default_device_is_cuda():
@@ -182,7 +202,8 @@ def test_default_device_is_cuda():
 def test_import_loads_neither_jax_nor_reference():
     code = ("import sys, repro_torch, repro_torch.serving, "
             "repro_torch.engines.frontier, repro_torch.kernels.ops, "
-            "repro_torch.kernels.build; "
+            "repro_torch.kernels.build, repro_torch.engines.grape, "
+            "repro_torch.engines.procedures; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]; "

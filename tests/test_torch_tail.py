@@ -101,8 +101,9 @@ class TestDeviceTailMatchesReference:
         assert_views_equal(jv, tv)
         assert_exactly_equal(jout[0], tout[0])
 
-    @pytest.mark.parametrize("n_frags,use_kernels", [(2, False), (1, True)])
-    @pytest.mark.parametrize("batch", [1, 8])
+    @pytest.mark.parametrize("n_frags,use_kernels", [(2, False), (1, True),
+                                                     (4, False), (4, True)])
+    @pytest.mark.parametrize("batch", [1, 8, 64])
     @pytest.mark.parametrize("q", [
         ("MATCH (a:Person {region: $r})-[:KNOWS]->(b:Person) "
          "WHERE b.credits > $t WITH b, COUNT(*) AS k "

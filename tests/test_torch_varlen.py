@@ -1,4 +1,5 @@
-"""Var-length stages, shortestPath, parameterized batches (B ∈ {1, 8})
+"""Var-length stages, shortestPath, parameterized batches (B ∈ {1, 8,
+64}, F ∈ {1, 2, 4})
 and the float32 overflow guards of the port's
 ``FragmentFrontierExecutor`` against the JAX package's: count matrices
 and distances bit-identical, ``finish_*`` outputs identical, and
@@ -45,6 +46,29 @@ class TestCountsMatchReference:
     def test_parameterized_batch(self, monkeypatch, engines, qi, batch,
                                  n_frags, use_kernels):
         params = [{"r": b % 8, "t": 200 + 40 * b} for b in range(batch)]
+        check(monkeypatch, engines, PARAM_QUERIES[qi], params, n_frags,
+              use_kernels)
+
+
+class TestWideConfigs:
+    """F = 4 fragments and B = 64 admission batches (the GPU smoke run's
+    batch width), both forms of the hop."""
+
+    @pytest.mark.parametrize("use_kernels", [False, True])
+    @pytest.mark.parametrize("query", [VARLEN[3], SHORTEST[0],
+                                       PARAM_QUERIES[0].replace(
+                                           "$r", "2").replace("$t", "300")])
+    def test_four_fragments(self, monkeypatch, engines, query, use_kernels):
+        check(monkeypatch, engines, query, [None], 4, use_kernels)
+
+    @pytest.mark.parametrize("n_frags,use_kernels", [(1, False), (4, False),
+                                                     (4, True)])
+    @pytest.mark.parametrize("qi", range(len(PARAM_QUERIES)))
+    def test_batch_64(self, monkeypatch, engines, qi, n_frags, use_kernels):
+        params = [{"r": (7 * b) % 300, "t": 100 + 13 * b}
+                  for b in range(64)]
+        if "region" in PARAM_QUERIES[qi]:
+            params = [dict(p, r=p["r"] % 8) for p in params]
         check(monkeypatch, engines, PARAM_QUERIES[qi], params, n_frags,
               use_kernels)
 

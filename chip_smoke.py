@@ -27,7 +27,21 @@
    ``QueryService(store, device="cpu")`` (the plain versions);
 5. profiles the device busy share of one batch of each fragment template
    and of the pagerank template (fixpoint recomputed);
-6. prints one ``kernels`` JSON line, the device line, and last the
+6. on the learning configuration — GraphSAGE with feature dim 32, hidden
+   64, 4 classes, fanouts (15, 10) over ``rmat_store(17, 16, seed=6)``
+   (131,072 vertices, 2,097,152 edges) — holds the ``sample_ell`` kernel
+   bit-exact against its plain version at both hop shapes (M = 2,048,
+   K = 15 and M = 30,720, K = 10) with planted edge cases on CSR and on a
+   small ELL slab, and on every launch of one full-graph inference, whose
+   inputs it also times the kernel on; serves
+   B = 64 ``CALL gnn.infer`` requests through ``QueryService`` (route
+   ``grape``, memo cleared first) with parameters crossed over from a
+   reference-layout tree; requires served scores equal to the offline
+   ``infer_scores`` bit for bit, and the card's draws identical to
+   ``device="cpu"``'s under shared uniforms, with scores within rtol 1e-5,
+   atol 1e-5 and the same top-10 rows where the score gaps exceed that;
+   profiles one batch of the template;
+7. prints one ``kernels`` JSON line, the device line, and last the
    ``{"ok": true, ...}`` line.
 
 Exits non-zero, with no result line, when CUDA is absent or the port's
@@ -97,6 +111,22 @@ RANK_TOL = {"pagerank_topk": (1e-4, 1e-7)}
 # GRAPE kernel family that no serving path calls, in the JAX package too
 NOT_ON_MAIN_PATH = {"spmv_ell"}
 
+# the learning path: the repo's GraphSAGE configuration (benchmarks/
+# learning_bench.py exp5: feature dim 32, hidden 64, 4 classes, fanouts
+# (15, 10)) on its R-MAT generator at 32x exp5's scale, about the size of
+# ogbn-arxiv; the kernels it runs are counted in its own run
+GNN_STORE = dict(scale=17, edge_factor=16, seed=6)
+GNN_DIM, GNN_HIDDEN, GNN_CLASSES, GNN_FANOUTS = 32, 64, 4, (15, 10)
+GNN_TEMPLATE = ("CALL gnn.infer($m) YIELD v, score "
+                "RETURN v AS v, score AS s ORDER BY s DESC LIMIT 10")
+GNN_KERNELS = {"sample_ell"}
+# card against CPU under shared uniforms: the same draws, float32 products
+# summed in another order
+GNN_RTOL, GNN_ATOL = 1e-5, 1e-5
+RANK_TOL["gnn_infer_topk"] = (GNN_RTOL, GNN_ATOL)
+# the unit of the draw's random reads: one 32-byte sector
+SECTOR = 32
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
@@ -119,6 +149,25 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_graph_ms(fn, iters: int = 100) -> float:
+    """Device time of one ``fn()``: ``iters`` calls captured in one CUDA
+    graph and replayed under CUDA events. A kernel shorter than its host
+    launch is otherwise timed at the rate the host can launch it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(iters):
+            fn()
+    return time_ms(graph.replay, iters=10, warmup=2) / iters
 
 
 def bound_ms(n_bytes: float, n_flops: float):
@@ -437,7 +486,7 @@ def serve(store, dev):
     if not tails.get("device"):
         fail(f"no batch finished its tail on the device: {tails}")
     for name, count in launches.items():
-        if count <= 0 and name not in NOT_ON_MAIN_PATH:
+        if count <= 0 and name not in NOT_ON_MAIN_PATH | GNN_KERNELS:
             fail(f"kernel {name} was not launched on the main path")
     return launches, latency
 
@@ -454,24 +503,345 @@ def profile_device_share(svc) -> None:
     for name, q, params, route in TEMPLATES:
         if route != "fragment" and name != "pagerank_topk":
             continue
-        svc.procedures.clear()
-        reqs = [(q, params(b)) for b in range(B)]
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            svc.serve(reqs)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA
-                      ) / 1e3
-        top = sorted((e for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=lambda e: -e.self_device_time_total)[:4]
-        print(f"profile {name}: batch {wall_ms:.3f} ms, device busy "
-              f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.2%}); top: "
-              + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms"
-                          for e in top))
+        profile_batch(svc, name, [(q, params(b)) for b in range(B)])
+
+
+def profile_batch(svc, name, reqs) -> None:
+    """One batch under torch.profiler, memo cleared first: its wall time,
+    the device's busy time and the top device items."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    svc.procedures.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        svc.serve(reqs)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  ) / 1e3
+    top = sorted((e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: -e.self_device_time_total)[:4]
+    print(f"profile {name}: batch {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.2%}); top: "
+          + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms "
+                      f"({e.count} calls)" for e in top))
+
+
+def learning_store():
+    """The learning configuration's graph with exp5's features (standard
+    normal, dim 32, ``default_rng(0)``) and labels (0..3)."""
+    import numpy as np
+
+    from repro_torch.storage.generators import rmat_store
+
+    g = rmat_store(**GNN_STORE)
+    rng = np.random.default_rng(0)
+    g._vprops["feat"] = rng.standard_normal(
+        (g.n_vertices, GNN_DIM)).astype(np.float32)
+    g._vprops["label"] = rng.integers(0, GNN_CLASSES,
+                                      g.n_vertices).astype(np.int32)
+    return g
+
+
+def reference_tree():
+    """GraphSAGE parameters in the JAX package's tree layout, made from the
+    seed with numpy (its "fan_in" init: N(0, 1/fan_in); zero biases)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    dims = [GNN_DIM] + [GNN_HIDDEN] * len(GNN_FANOUTS)
+
+    def fan_in(a, b):
+        return (rng.standard_normal((a, b)) / np.sqrt(a)).astype(np.float32)
+
+    tree = {f"l{i}": {"w_self": fan_in(dims[i], dims[i + 1]),
+                      "w_nbr": fan_in(dims[i], dims[i + 1]),
+                      "b": np.zeros(dims[i + 1], np.float32)}
+            for i in range(len(GNN_FANOUTS))}
+    tree["out"] = {"w": fan_in(GNN_HIDDEN, GNN_CLASSES),
+                   "b": np.zeros(GNN_CLASSES, np.float32)}
+    return tree
+
+
+def sample_bound(starts, deg, idx, rows, u):
+    """Bytes one draw must move for these inputs and the bound they set:
+    u, rows and out once each, and each distinct 32-byte sector of deg and
+    starts (in-range seed rows) and of indices (valid draws) that the
+    inputs touch — a row drawn from twice, or draws that share a sector,
+    are counted once."""
+    import torch
+
+    M, K = u.shape
+    in_range = (rows >= 0) & (rows < starts.shape[0])
+    r = rows[in_range].long()
+    d = deg[r][:, None]
+    col = torch.minimum((u[in_range] * d.float()).to(torch.int32),
+                        (d - 1).clamp_min(0))
+    pos = (starts[r][:, None] + col)[(d > 0).expand_as(col)]
+    sectors = (torch.unique(r // (SECTOR // 4)).numel()          # deg
+               + torch.unique(r // (SECTOR // 8)).numel()        # starts
+               + torch.unique(pos // (SECTOR // 4)).numel())     # indices
+    n_bytes = M * K * 4 * 2 + M * 4 + SECTOR * sectors
+    return bound_ms(n_bytes, 0.0)[0]
+
+
+def inference_draws(ex, fanouts, key=0):
+    """The sampling inputs of one full-graph ``infer_scores(key=key)``:
+    for each hop, the (rows, u) of every chunk — hop 1's rows are the
+    chunk's seeds, hop 2's the chunk's hop-1 draws — as the main path
+    makes them (the same chunk grid and per-chunk generator seeds)."""
+    import torch
+
+    from repro_torch.learning import SageTrainer
+    from repro_torch.learning.sampler import step_seed
+
+    dev, n = ex.device, ex.n_vertices
+    chunk = SageTrainer.INFER_CHUNK
+    n_chunks = -(-n // chunk)
+    seeds = torch.arange(n_chunks * chunk, dtype=torch.int32, device=dev)
+    seeds[n:] = -1
+    hops = [[] for _ in fanouts]
+    for i in range(n_chunks):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(step_seed(key, i))
+        us = []
+
+        def draw(l, m, k, gen=gen, us=us):
+            us.append(torch.rand((m, k), generator=gen, device=dev))
+            return us[-1]
+        rows = seeds[i * chunk:(i + 1) * chunk]
+        layers, _, _ = ex._sample_impl(rows, fanouts, draw)
+        for l in range(len(fanouts)):
+            hops[l].append((rows, us[l]))
+            rows = layers[l].reshape(-1)
+    return hops
+
+
+def check_sampler(ex, dev):
+    """sample_ell against its plain version on the learning graph: at both
+    hop shapes with planted edge cases (PAD and out-of-range rows,
+    isolated rows, the hub, u just below 1), on CSR and on a small ELL
+    slab, and on every launch of one full-graph inference — bit-exact.
+    Times the kernel and its plain version over that inference's own
+    inputs (its 64 launches of each hop, back to back in a CUDA graph).
+    Returns its record: times and bound are means per launch over the
+    inference's 128 launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.sampler import (csr_to_sample_ell,
+                                             sample_draw_ref, sample_ell,
+                                             sample_ell_width)
+    from repro_torch.storage.generators import rmat_store
+
+    n = ex.n_vertices
+    starts, deg, idx = ex.csr_starts, ex.deg, ex.csr_indices
+    isolated = torch.nonzero(deg == 0)[:, 0].to(torch.int32)
+    hub = int(torch.argmax(deg))
+    slab_gb = n * sample_ell_width(deg.cpu().numpy()) * 4 / 1e9
+    print(f"learning graph: {n} vertices, {idx.numel() - 1} edges, max "
+          f"degree {int(deg[hub])} (vertex {hub}), {isolated.numel()} "
+          f"isolated; its ELL sampling slab would be {slab_gb:.3g} GB")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    one_minus = float(np.nextafter(np.float32(1), np.float32(0)))
+
+    def planted(M, K, n_rows, iso):
+        rows = torch.randint(0, n_rows, (M,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        rows[::50] = -1
+        rows[1::50] = n_rows + 7
+        rows[2::50] = hub if n_rows == n else 0
+        if iso.numel():
+            pick = torch.randint(0, iso.numel(), (len(rows[3::50]),),
+                                 generator=gen, device=dev)
+            rows[3::50] = iso[pick]
+        u = torch.rand((M, K), generator=gen, device=dev)
+        u.view(-1)[::13] = one_minus
+        return rows, u
+
+    def same(rows, u, what):
+        got = ops.sample_neighbors(starts, deg, idx, rows, u)
+        want = sample_draw_ref(starts, deg, idx, rows, u)
+        if got.shape != u.shape or not torch.equal(got, want):
+            fail(f"sample_ell: differs from its plain version {what} "
+                 f"({int((got != want).sum())} draws)")
+        return int((got - want).abs().max())
+
+    # a small ELL slab (the JAX package's layout) from the same generator
+    small = rmat_store(scale=10, edge_factor=16, seed=GNN_STORE["seed"])
+    ell_np, deg_np = csr_to_sample_ell(*small.adjacency())
+    ell = torch.as_tensor(ell_np, device=dev)
+    deg_e = torch.as_tensor(deg_np, device=dev)
+    iso_e = torch.nonzero(deg_e == 0)[:, 0].to(torch.int32)
+    W = ell.shape[1]
+    starts_e = torch.arange(ell.shape[0], dtype=torch.int64, device=dev) * W
+    err = 0
+    for M, K in [(2048, GNN_FANOUTS[0]), (2048 * GNN_FANOUTS[0],
+                                          GNN_FANOUTS[1])]:
+        err = max(err, same(*planted(M, K, n, isolated),
+                            f"at M={M}, K={K} (planted rows)"))
+        rows_e, u_e = planted(M, K, ell.shape[0], iso_e)
+        if not torch.equal(sample_ell(ell, deg_e, rows_e, u_e),
+                           sample_draw_ref(starts_e, deg_e, ell.reshape(-1),
+                                           rows_e, u_e)):
+            fail(f"sample_ell: differs on the ELL slab at M={M}, K={K}")
+
+    hops = inference_draws(ex, GNN_FANOUTS)
+    stats = {"ms": [], "plain_ms": [], "bound_ms": []}
+    for l, launches in enumerate(hops):
+        for i, (rows, u) in enumerate(launches):
+            err = max(err, same(rows, u, f"at hop {l + 1} of chunk {i}"))
+        n_l = len(launches)
+
+        def kern(launches=launches):
+            for rows, u in launches:
+                ops.sample_neighbors(starts, deg, idx, rows, u)
+
+        def plain(launches=launches):
+            for rows, u in launches:
+                sample_draw_ref(starts, deg, idx, rows, u)
+        t = time_graph_ms(kern, iters=5) / n_l
+        t_eager = time_ms(kern, iters=3) / n_l
+        tp = time_graph_ms(plain, iters=2) / n_l
+        b = sum(sample_bound(starts, deg, idx, rows, u)
+                for rows, u in launches) / n_l
+        for key, val in zip(stats, (t, tp, b)):
+            stats[key].append(val)
+        M, K = launches[0][1].shape
+        pad = sum(int((rows < 0).sum()) for rows, _ in launches) / n_l
+        print(f"sample_ell hop {l + 1} (M={M}, K={K}; {pad:.1f} PAD rows "
+              f"a launch): bit-exact on planted rows (CSR and ELL slab "
+              f"{ell.shape[0]}x{W}) and on all {n_l} launches of one "
+              f"inference; device time {t:.5f} ms a launch ({t_eager:.5f} "
+              f"ms launched back to back from the host), plain "
+              f"{tp:.5f} ms, bound {b:.5f} ms (bytes; {t / b:.2f}x)")
+    ops.reset_launches()
+    return {"name": "sample_ell", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/sampler.cu",
+            "replaces": "src/repro/kernels/sampler.py:94", "launches": 0,
+            "max_abs_err": float(err),
+            "ms": sum(stats["ms"]) / 2, "plain_ms": sum(stats["plain_ms"]) / 2,
+            "bound_ms": sum(stats["bound_ms"]) / 2, "bound_by": "bytes",
+            "library_ms": None}
+
+
+def serve_gnn(store, dev):
+    """The learning path: B = 64 ``CALL gnn.infer`` requests through
+    QueryService, and its correctness checks. Returns the launch counts
+    of the served batch."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.learning import GraphSampler, SageTrainer
+    from repro_torch.serving import QueryService
+
+    tree = reference_tree()
+    trainer = SageTrainer(GraphSampler(store, label_prop="label",
+                                       device=dev),
+                          GNN_HIDDEN, GNN_CLASSES, GNN_FANOUTS, params=tree)
+    record = check_sampler(trainer.sampler.device_executor(), dev)
+    svc = QueryService(store, device=dev)
+    trainer.register_inference(svc.procedures, "sage")
+    reqs = [(GNN_TEMPLATE, {"m": "sage"})] * B
+    svc.serve(reqs[:1])                  # warm-up: plan, executor tables
+    torch.cuda.synchronize()
+    svc.procedures.clear()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rs, _ = svc.serve(reqs)
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(ops.LAUNCHES)
+    print("launches on the learning path:", json.dumps(launches))
+    routes = {r.engine for r in rs}
+    stats = svc.procedures.stats
+    print(f"gnn_infer_topk: route {'/'.join(sorted(routes))}, {len(rs)} "
+          f"requests, batch {batch_ms:.3f} ms, first request (inference) "
+          f"{rs[0].service_us / 1e3:.3f} ms, rest "
+          f"{sum(r.service_us for r in rs[1:]) / 1e3:.3f} ms; memo hits "
+          f"{stats.hits}, misses {stats.misses}")
+    if routes != {"grape"}:
+        fail(f"gnn_infer_topk: served on {sorted(routes)}, expected grape")
+    for name in GNN_KERNELS:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the learning path")
+
+    # served scores are the offline forward pass, bit for bit
+    t0 = time.perf_counter()
+    offline = trainer.infer_scores(key=0)
+    torch.cuda.synchronize()
+    print(f"offline infer_scores: {(time.perf_counter() - t0) * 1e3:.3f} ms")
+    served = svc.procedures.run(store, "gnn.infer", ("sage",))
+    if not np.isfinite(offline).all() or offline.shape != (store.n_vertices,):
+        fail("gnn.infer: scores not finite or of the wrong shape")
+    if not np.array_equal(served, offline):
+        fail("gnn.infer: served scores differ from offline infer_scores")
+    for r in rs:
+        v = np.asarray(r.result["v"], np.int64)
+        if not np.array_equal(np.asarray(r.result["s"], np.float32),
+                              offline[v]) or len(v) != 10:
+            fail("gnn.infer: a served top-10 differs from offline scores")
+
+    # the card against the CPU path, under one set of uniforms drawn on
+    # the card and copied to the host
+    cpu_trainer = SageTrainer(GraphSampler(store, label_prop="label",
+                                           device="cpu"),
+                              GNN_HIDDEN, GNN_CLASSES, GNN_FANOUTS,
+                              params=tree)
+    ex, cpu_ex = trainer.sampler.device_executor(), \
+        cpu_trainer.sampler.device_executor()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+    chunk = SageTrainer.INFER_CHUNK
+    n_chunks = -(-store.n_vertices // chunk)
+    shapes = [(chunk, GNN_FANOUTS[0]), (chunk * GNN_FANOUTS[0],
+                                        GNN_FANOUTS[1])]
+    u_dev = [[torch.rand(s, generator=gen, device=dev) for s in shapes]
+             for _ in range(n_chunks)]
+    u_host = [[u.cpu() for u in us] for us in u_dev]
+    same_draws = True
+    for i in range(n_chunks):
+        seeds = torch.arange(i * chunk, (i + 1) * chunk, dtype=torch.int32)
+        seeds[seeds >= store.n_vertices] = -1
+        a, _, _ = ex._sample_impl(seeds.to(dev), GNN_FANOUTS,
+                                  lambda l, m, k, i=i: u_dev[i][l])
+        b, _, _ = cpu_ex._sample_impl(seeds, GNN_FANOUTS,
+                                      lambda l, m, k, i=i: u_host[i][l])
+        same_draws &= all(torch.equal(x.cpu(), y) for x, y in zip(a, b))
+    if not same_draws:
+        fail("gnn.infer: the card's draws differ from the CPU path's")
+    svc.procedures.register_model("shared", lambda st: trainer.infer_scores(
+        st, uniforms=lambda i, l, m, k: u_dev[i][l]))
+    cpu_svc = QueryService(store, device="cpu")
+    cpu_svc.procedures.register_model(
+        "shared", lambda st: cpu_trainer.infer_scores(
+            st, uniforms=lambda i, l, m, k: u_host[i][l]))
+    shared = [(GNN_TEMPLATE, {"m": "shared"})]
+    got, _ = svc.serve(shared)
+    t0 = time.perf_counter()
+    want, _ = cpu_svc.serve(shared)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    s_dev = svc.procedures.run(store, "gnn.infer", ("shared",))
+    s_cpu = cpu_svc.procedures.run(store, "gnn.infer", ("shared",))
+    err = float(np.abs(s_dev - s_cpu).max())
+    print(f"card vs CPU under shared uniforms: draws identical over "
+          f"{n_chunks} chunks; max |score diff| {err:.3e} (CPU service "
+          f"{cpu_ms:.1f} ms)")
+    if not np.allclose(s_dev, s_cpu, rtol=GNN_RTOL, atol=GNN_ATOL):
+        fail(f"gnn.infer: card scores beyond rtol {GNN_RTOL}, atol "
+             f"{GNN_ATOL} of the CPU path's (max |diff| {err})")
+    why = rows_mismatch("gnn_infer_topk", want[0].result, got[0].result)
+    if why is not None:
+        fail(f"gnn.infer: top-10 differs from the CPU path's: {why}")
+    profile_batch(svc, "gnn_infer_topk", reqs)
+    return launches, record
 
 
 def main() -> int:
@@ -509,6 +879,15 @@ def main() -> int:
           f"({time.perf_counter() - t0:.2f} s)")
     records = check_kernels(PropertyGraph(store), dev)
     launches, _latency = serve(store, dev)
+    del store
+    t0 = time.perf_counter()
+    gstore = learning_store()
+    print(f"learning store: {gstore.n_vertices} vertices, "
+          f"{gstore.n_edges} edges ({time.perf_counter() - t0:.2f} s)")
+    gnn_launches, record = serve_gnn(gstore, dev)
+    records.append(record)
+    for name in GNN_KERNELS:
+        launches[name] = gnn_launches[name]
     for rec in records:
         rec["launches"] = launches[rec["name"]]
     print(json.dumps({"kernels": records}))

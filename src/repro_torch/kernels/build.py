@@ -34,6 +34,8 @@ SIGNATURES = {
                                            _I, _P]),
     "segment_sum_launch": ("segment_sum", [_P, _P, _P, _L, _I, _I, _P]),
     "spmv_ell_launch": ("spmv", [_P, _P, _P, _P, _I, _I, _I, _P]),
+    "sample_neighbors_launch": ("sampler", [_P, _P, _P, _P, _P, _P, _L, _I,
+                                            _I, _I, _P]),
 }
 LIBRARIES = sorted({lib for lib, _ in SIGNATURES.values()})
 

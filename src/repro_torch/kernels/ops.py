@@ -1,8 +1,9 @@
 """Dispatch wrappers around the port's CUDA kernels.
 
 Each wrapper checks its inputs, then runs the kernel for CUDA tensors
-and the plain version from :mod:`repro_torch.kernels.ref` for CPU
-tensors; any other device raises. There is no fallback: a kernel that
+and the plain version from :mod:`repro_torch.kernels.ref` (the sampler's
+from :mod:`repro_torch.kernels.sampler`) for CPU tensors; any other
+device raises. There is no fallback: a kernel that
 fails to build or launch raises. ``LAUNCHES`` counts kernel launches per
 kernel, so a run can show that its main path went through them.
 """
@@ -15,11 +16,12 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.sampler import sample_draw_ref
 from repro_torch.storage.partition import PAD_SENTINEL
 
 LAUNCHES: Dict[str, int] = {"frontier_ell": 0, "frontier_ell_minplus": 0,
                             "tail_reduce_grid": 0, "segment_sum_sorted": 0,
-                            "spmv_ell": 0}
+                            "spmv_ell": 0, "sample_ell": 0}
 
 # columns of N one block of the tail reduction covers (csrc/tail_reduce.cu)
 TAIL_CHUNK = 4096
@@ -159,6 +161,47 @@ def segment_sum(vals: torch.Tensor, segs: torch.Tensor,
         _check_cuda(err, "segment_sum_sorted")
         LAUNCHES["segment_sum_sorted"] += 1
     return y
+
+
+# ------------------------------------------------------------ sampling
+def sample_neighbors(starts: torch.Tensor, deg: torch.Tensor,
+                     indices: torch.Tensor, rows: torch.Tensor,
+                     u: torch.Tensor) -> torch.Tensor:
+    """One fixed-fanout sampling hop off CSR (``kernels/sampler.py``):
+    starts int64 [R] and deg int32 [R] locate each row's neighbours in
+    indices int32 [E]; rows int32 [M] (outside [0, R) ⇒ no draw); u
+    float32 [M, K] uniforms in [0, 1) → out int32 [M, K], PAD_SENTINEL for
+    invalid or isolated rows. The kernel trusts ``starts[r] + deg[r] ≤ E``
+    (the executor builds them from one CSR)."""
+    _require(starts.dtype == torch.int64 and starts.dim() == 1,
+             "starts must be int64 [R]")
+    _require(deg.dtype == torch.int32 and deg.shape == starts.shape,
+             "deg must be int32 with starts' shape")
+    _require(indices.dtype == torch.int32 and indices.dim() == 1,
+             "indices must be int32 [E]")
+    _require(rows.dtype == torch.int32 and rows.dim() == 1,
+             "rows must be int32 [M]")
+    _require(u.dtype == torch.float32 and u.dim() == 2
+             and u.shape[0] == rows.shape[0], "u must be float32 [M, K]")
+    _require(all(t.device == u.device for t in (starts, deg, indices, rows)),
+             "sampling inputs must be on one device")
+    _require(all(t.is_contiguous() for t in (starts, deg, indices, rows, u)),
+             "sampling inputs must be contiguous")
+    _require(starts.shape[0] < 2 ** 31, "at most 2**31 - 1 rows")
+    if _plain(u):
+        return sample_draw_ref(starts, deg, indices, rows, u)
+    from repro_torch.kernels import build
+
+    M, K = u.shape
+    out = torch.empty((M, K), dtype=torch.int32, device=u.device)
+    if M and K:
+        err = build.library("sampler").sample_neighbors_launch(
+            starts.data_ptr(), deg.data_ptr(), indices.data_ptr(),
+            rows.data_ptr(), u.data_ptr(), out.data_ptr(), M, K,
+            starts.shape[0], u.device.index or 0, _stream(u))
+        _check_cuda(err, "sample_ell")
+        LAUNCHES["sample_ell"] += 1
+    return out
 
 
 # --------------------------------------------------------- frontier hop

@@ -141,3 +141,88 @@ class TestCudaGrapeKernels:
         torch.testing.assert_close(ops.spmv(*args, xf, rm, n),
                                    ref.spmv_step_ref(*args, xf, rm, n),
                                    rtol=1e-5, atol=1e-6)
+
+
+def random_csr(rng, R, max_deg, hub=None, isolated=0.2):
+    """CSR adjacency (starts int64, deg int32, indices int32 with one
+    trailing sentinel) with isolated rows, edges into vertex 0 and one
+    hub row of ``hub`` neighbours."""
+    deg = rng.integers(1, max_deg + 1, R)
+    deg[rng.random(R) < isolated] = 0
+    if hub is not None:
+        deg[R // 2] = hub
+    indptr = np.concatenate([[0], np.cumsum(deg)])
+    indices = rng.integers(0, R, int(indptr[-1])).astype(np.int32)
+    indices[rng.random(len(indices)) < 0.1] = 0
+    return (indptr[:-1].astype(np.int64), deg.astype(np.int32),
+            np.concatenate([indices, [PAD_SENTINEL]]).astype(np.int32))
+
+
+def draw_rows(rng, R, M):
+    """Seed rows with PAD (-1), out-of-range (≥ R) and hub rows."""
+    rows = rng.integers(0, R, M).astype(np.int32)
+    rows[rng.random(M) < 0.1] = PAD_SENTINEL
+    rows[rng.random(M) < 0.05] = R + 7
+    rows[::97] = R // 2
+    return rows
+
+
+def draw_uniforms(rng, M, K):
+    """float32 uniforms in [0, 1), with nextafter(1, 0) to hit the clamp."""
+    u = rng.random((M, K)).astype(np.float32)
+    u.reshape(-1)[::13] = np.nextafter(np.float32(1), np.float32(0))
+    return u
+
+
+@pytest.mark.cuda
+class TestCudaSampler:
+    """sample_ell (csrc/sampler.cu) against sample_draw_ref on the card:
+    bit-exact, on CSR and on an ELL slab."""
+
+    @pytest.fixture(autouse=True)
+    def _need_cuda(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+
+    @pytest.mark.parametrize("R,M,K,hub", [
+        (1, 1, 1, None), (300, 130, 4, 5000), (5000, 2048, 15, 20000),
+        (2000, 3001, 10, 70_000), (64, 0, 3, None)])
+    def test_csr_draws_bit_exact(self, R, M, K, hub):
+        from repro_torch.kernels.sampler import sample_draw_ref
+
+        rng = np.random.default_rng(R + M + K)
+        starts, deg, indices = (T(a).cuda() for a in
+                                random_csr(rng, R, 40, hub))
+        rows = T(draw_rows(rng, R, M)).cuda()
+        u = T(draw_uniforms(rng, M, K)).cuda()
+        before = ops.LAUNCHES["sample_ell"]
+        got = ops.sample_neighbors(starts, deg, indices, rows, u)
+        assert ops.LAUNCHES["sample_ell"] == before + (1 if M else 0)
+        assert got.dtype == torch.int32 and got.shape == (M, K)
+        assert torch.equal(got, sample_draw_ref(starts, deg, indices, rows,
+                                                u))
+
+    @pytest.mark.parametrize("R,W,M,K", [(200, 33, 500, 7), (64, 256, 64, 15)])
+    def test_ell_draws_bit_exact(self, R, W, M, K):
+        from repro_torch.kernels.sampler import sample_draw_ref, sample_ell
+
+        rng = np.random.default_rng(R + W)
+        deg = rng.integers(0, W + 1, R).astype(np.int32)
+        ell = rng.integers(0, R, (R, W)).astype(np.int32)
+        ell[np.arange(W)[None] >= deg[:, None]] = PAD_SENTINEL
+        ell_t, deg_t = T(ell).cuda(), T(deg).cuda()
+        rows = T(draw_rows(rng, R, M)).cuda()
+        u = T(draw_uniforms(rng, M, K)).cuda()
+        starts = torch.arange(R, dtype=torch.int64, device="cuda") * W
+        want = sample_draw_ref(starts, deg_t, ell_t.reshape(-1), rows, u)
+        assert torch.equal(sample_ell(ell_t, deg_t, rows, u), want)
+
+    def test_rejects_wrong_dtype_and_device(self):
+        rng = np.random.default_rng(0)
+        starts, deg, indices = (T(a).cuda() for a in random_csr(rng, 50, 5))
+        rows = T(draw_rows(rng, 50, 20)).cuda()
+        u = T(draw_uniforms(rng, 20, 3)).cuda()
+        with pytest.raises(ValueError, match="float32"):
+            ops.sample_neighbors(starts, deg, indices, rows, u.double())
+        with pytest.raises(ValueError, match="one device"):
+            ops.sample_neighbors(starts, deg, indices, rows.cpu(), u)

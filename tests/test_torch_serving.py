@@ -203,7 +203,8 @@ def test_import_loads_neither_jax_nor_reference():
     code = ("import sys, repro_torch, repro_torch.serving, "
             "repro_torch.engines.frontier, repro_torch.kernels.ops, "
             "repro_torch.kernels.build, repro_torch.engines.grape, "
-            "repro_torch.engines.procedures; "
+            "repro_torch.engines.procedures, repro_torch.learning, "
+            "repro_torch.engines.sample, repro_torch.kernels.sampler; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]; "
